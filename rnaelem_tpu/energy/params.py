@@ -342,6 +342,62 @@ def parse_par_text(text: str, name: str = "custom") -> EnergyParams:
     return p
 
 
+def format_par_text(p: EnergyParams) -> str:
+    """ViennaRNA 2.0 ``.par`` text that parse_par_text reads back into
+    the same arrays: each log Boltzmann factor is written as the integer
+    dacal/mol energy it came from (smoothed tables are inverted by
+    search, since the soft-minimum transform maps every energy >= 13 to
+    the same factor)."""
+    smooth_inv = {}
+    for z in range(5000, -5001, -1):
+        smooth_inv[_logb(z, True)] = z
+
+    def num(v, smo=False):
+        if v == NEG_INF:
+            return "INF"
+        z = smooth_inv[v] if smo else int(round(-v * KT / 10.0))
+        assert _logb(z, smo) == v, (v, z)
+        return str(z)
+
+    out = ["## RNAfold parameter file v2.0"]
+
+    def block(name, rows, smo=False):
+        out.append(f"\n# {name}")
+        out.extend(" ".join(num(v, smo) for v in np.ravel(r)) for r in rows)
+
+    rng = range(1, 7)
+    block("stack", [p.stack[i, 1:7] for i in rng])
+    for name, arr in (("mismatch_hairpin", p.mismatch_h),
+                      ("mismatch_interior", p.mismatch_i),
+                      ("mismatch_interior_1n", p.mismatch_1n),
+                      ("mismatch_interior_23", p.mismatch_23)):
+        block(name, [arr[i] for i in rng])
+    for name, arr in (("mismatch_multi", p.mismatch_m),
+                      ("mismatch_exterior", p.mismatch_e),
+                      ("dangle5", p.dangle5), ("dangle3", p.dangle3)):
+        block(name, [arr[i] for i in range(1, 8)], smo=True)
+    pairs7 = [(i, j) for i in range(1, 8) for j in range(1, 8)]
+    block("int11", [p.int11[i, j] for i, j in pairs7])
+    block("int21", [p.int21[i, j] for i, j in pairs7])
+    block("int22", [p.int22[i, j, k, l, m, 1:5]
+                    for i in rng for j in rng for k in range(1, 5)
+                    for l in range(1, 5) for m in range(1, 5)])
+    for name, arr in (("hairpin", p.hairpin), ("bulge", p.bulge),
+                      ("interior", p.internal)):
+        block(name, [arr])
+    e = [int(num(v)) for v in p.ninio]
+    out.append(f"\n# NINIO\n{e[1]} 0 {max(e)}")
+    out.append(f"\n# ML_params\n{num(p.ml_base)} 0 {num(p.mlclosing)} 0 "
+               f"{num(p.mlintern)} 0")
+    out.append(f"\n# Misc\n0 0 {num(p.term_au)} 0 {p.lxc!r}")
+    for name, loops in (("Triloops", p.triloops),
+                        ("Tetraloops", p.tetraloops),
+                        ("Hexaloops", p.hexaloops)):
+        out.append(f"\n# {name}")
+        out.extend(f"{k} {num(v)}" for k, v in loops.items())
+    return "\n".join(out) + "\n\n# END\n"
+
+
 _CACHE: Dict[str, EnergyParams] = {}
 
 

@@ -2,7 +2,7 @@
 
 Compiles a dot-bracket motif pattern (``(``, ``)``, ``.``, ``*`` plus the
 implicit flanking ``z``/``o`` background nodes) into dense transition
-tensors consumed by the TPU DP kernels.
+tensors consumed by the DP kernels.
 
 This reimplements the semantics of the reference state-machine builder
 (/root/reference/RNAelem/profile_hmm.hpp:206-463): nodes -> edges ->

@@ -152,3 +152,27 @@ class FastqBatchReader:
 
     def orig(self):
         return self._qr
+
+
+def write_flat_fastq(fasta_path: str, fq_path: str,
+                     n_seqs: int = None) -> int:
+    """FASTA -> FASTQ with flat '+' qualities and the has-motif sentinel
+    '!' on every read, T read as U (the layout of the reference's tRNA
+    toy runs); only the first n_seqs records when given.  Returns the
+    number of reads written."""
+    seqs, cur = [], None
+    for line in open(fasta_path):
+        line = line.strip()
+        if line.startswith(">"):
+            if cur:
+                seqs.append(cur)
+            cur = ""
+        else:
+            cur += line.replace("T", "U")
+    if cur:
+        seqs.append(cur)
+    seqs = seqs[:n_seqs]
+    with open(fq_path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(f"@t{i}\n{s}\n+\n{'+' * len(s)}!\n")
+    return len(seqs)

@@ -1,6 +1,6 @@
 // rnaelem_tpu native runtime pieces (C ABI, loaded via ctypes).
 //
-// The reference keeps its whole runtime in C++; in the TPU rebuild the
+// The reference keeps its whole runtime in C++; in this rebuild the
 // compute path is XLA, and the host-side hot loops live here:
 //   * klet_shuffle: uniform k-let-preserving shuffle (Euler walk over a
 //     random arborescence on the (k-1)-let de Bruijn multigraph), the

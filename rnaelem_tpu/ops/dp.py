@@ -1,21 +1,23 @@
-"""Joint (energy x motif) banded inside-outside DP — batched, TPU-first.
+"""Joint (energy x motif) banded inside-outside DP — batched.
 
 One ``lax.scan`` over sequence columns j computes the inside recursion of
 the reference (energy_model.hpp:340-441 fanned out over motif states by
 motif_model.hpp:230-423) for a WHOLE BATCH of reads at once, sum semiring
 only (the max/CYK twin lives in ops/dp_max.py).
 
-TPU-native design decisions (vs the per-read column scan of round 1):
+Design decisions (vs the per-read column scan of round 1):
 
 * **Batch-minor layout**: every tensor carries the batch axis LAST, so
-  the (state, batch) plane fills VPU lanes/sublanes; a vmap'd per-read
-  kernel left >90% of the lanes idle ((W+1) x S = 51 x 29 minor dims).
+  the minor dimension is the batch rather than the small (W+1) x S =
+  51 x 29 band-by-state plane of a vmap'd per-read kernel.
 * **Exp-space matmuls**: all state fan-outs (right-chain transitions,
   pair transitions, B=1x2 bifurcation splits, O=O*P exterior splits and
   the TT_E_P quadruple sum) are computed as max-shifted exponential
-  matmuls against static 0/1 (or tau) matrices — MXU work instead of
-  lane-starved logsumexp reductions.  Shifts are jax.lax.stop_gradient'd
-  so reverse-mode gradients stay exact.
+  matmuls against static 0/1 (or tau) matrices — dense products instead
+  of logsumexp reductions.  Shifts are jax.lax.stop_gradient'd so
+  reverse-mode gradients stay exact.  Their float32 accuracy depends on
+  jax_default_matmul_precision (rnaelem_tpu/runtime.py).
+  Whether this layout is the fast one on a GPU has not been measured.
 * **Hoisted energy exponentials**: exp(lambda * {misA, misB, SZ, ext})
   are computed once per evaluation outside the column scan (the round-1
   kernel re-exponentiated the internal-loop tensors per column per
@@ -52,7 +54,7 @@ _ABLATE = frozenset(
     x for x in os.environ.get("RNAELEM_ABLATE", "").split(",") if x)
 # inner M-chain unroll factor: the band-deep sequential scan issues
 # ~51 tiny [S, B] steps per column; unrolling lets XLA fuse runs of
-# them into one kernel (experiment knob — see BASELINE.md roofline)
+# them into one kernel (experiment knob, unmeasured on the GPU)
 _M_UNROLL = int(os.environ.get("RNAELEM_M_UNROLL", "1"))
 # outer column-scan unroll (forward and backward)
 _COL_UNROLL = int(os.environ.get("RNAELEM_COL_UNROLL", "1"))
@@ -512,8 +514,8 @@ def build_dp(g, dims: Dims, energy_tab, dtype=jnp.float64):
 
         # fused energy weight W[bu][dl, x, u1, B]: misB (inner pair) x
         # size/asymmetry class x misA (outer pair), classes summed.
-        # misA's w = x + u1 geometry is the Ind indicator matmul (a
-        # gather would serialize on TPU).
+        # misA's w = x + u1 geometry is the Ind indicator matmul
+        # instead of a gather.
         mBsh = [_shear(rows["emisB"][b], Wp + 1, 0.0)
                 for b in range(2)]                 # [dl, x, 4, B]
         mArow = rows["emisA"]                      # [4, w, B] per bucket
@@ -528,10 +530,9 @@ def build_dp(g, dims: Dims, energy_tab, dtype=jnp.float64):
                      * rows["eSZ"][b][x_][:, None, :, :]
                      * wA[g_][None, :, :, :])      # [dl, x, u1, B]
                 Wall = t if Wall is None else Wall + t
-            # V[x, u1, ar, B] = sum_dl Tsh * Wall (mul-reduce fusion —
-            # measured faster than both dot_general forms: batch dims
-            # (x, B) or (B,) alike force relayouts that cost more than
-            # the VPU reduce)
+            # V[x, u1, ar, B] = sum_dl Tsh * Wall as a fused
+            # multiply-reduce rather than a dot_general with batch dims
+            # (x, B) or (B,)
             V_bu.append((Tsh[:, :, None, :, :]
                          * Wall[:, :, :, None, :]).sum(axis=0))
 
@@ -572,9 +573,9 @@ def build_dp(g, dims: Dims, energy_tab, dtype=jnp.float64):
         The per-(j, w) base-coupled energies are precomputed once per
         read (c.ep["spec_il"], ep_fast.seq_tables), so the column body
         has no table gathers.  fix_rss flank masks ride in via
-        exLB/exL3.  (A stacked single-einsum form of the six combos
-        triggers an XLA TPU fusion-emitter crash in reverse mode, so
-        they stay as a small unrolled loop.)"""
+        exLB/exL3.  The six combos stay a small unrolled loop: a
+        stacked single-einsum form crashed an earlier XLA backend's
+        fusion emitter in reverse mode and is untested on the GPU."""
         lamk2 = lam[lamk2_idx]                     # [n2, 1 or B]
         il6 = c.ep["spec_il"][:, j]                # [6, w, B]
         acc = None
@@ -645,12 +646,12 @@ def build_dp(g, dims: Dims, energy_tab, dtype=jnp.float64):
             O=pre(win["O"], cols["O"]),
         )
 
-    # columns per scan step.  KB=2 measured within noise of KB=1 on the
-    # TPU at B=128 (138.6 vs 137.2 seqs/s) while doubling compile time
-    # — and compile time is paid once per (pattern, bucket) across the
-    # 135-pattern pipeline, so stay at 1.  The block machinery is kept
-    # (and exercised by the unit suite via any even-Lp config if bumped)
-    # in case future column bodies get small enough to fuse.
+    # columns per scan step.  KB=2 doubles compile time, which is paid
+    # once per (pattern, bucket) across the 135-pattern pipeline, so
+    # stay at 1.  The block machinery is kept (and exercised by the
+    # unit suite via any even-Lp config if bumped) in case future
+    # column bodies get small enough to fuse; KB=2 is unmeasured on the
+    # GPU.
     KB = 1
 
     def cols_fn(win, j, rows, aux, c: ConstFactors):

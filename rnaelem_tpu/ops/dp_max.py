@@ -1,4 +1,4 @@
-"""Joint (energy x motif) banded inside-outside DP, TPU-native.
+"""Joint (energy x motif) banded inside-outside DP, per read.
 
 The reference implements one templated recursion consumed by five functor
 families (energy_model.hpp:340-547, motif_model.hpp:230-613,
@@ -125,8 +125,8 @@ def _flip_rows(T, j, nrows: int):
 def _mchain_assoc(Tmats, bvecs):
     """Solve x_w = (T_w o x_{w-1}) ⊕ b_w in the log semiring with x_-1
     = -inf, via an associative scan of affine maps in exp space with
-    per-element shifts (matmuls run on the MXU instead of a 51-step
-    sequential inner loop).  Returns x [W+1, S].
+    per-element shifts (matmuls instead of a 51-step sequential inner
+    loop).  Returns x [W+1, S].
 
     Tmats: [W+1, S, S] log transition factors (target, source);
     bvecs:  [W+1, S] log source terms.
@@ -234,8 +234,8 @@ def build_dp(g, dims: Dims, energy_tab, dtype=jnp.float64,
         ep_term_fast = None
     # factorized internal-loop reconstruction (max path): class size
     # matrices [n_cls, u1, u2] + static (w, dk, dl) geometry; replaces
-    # the per-column iloop_scores whose 6-D energy-table gathers were
-    # ~80% of the vmapped CYK kernel's wall clock on TPU.
+    # the per-column iloop_scores, whose 6-D energy-table gathers
+    # dominated the vmapped CYK kernel.
     SZ_cls = jnp.asarray(ep_static.SZ, dtype)        # [n_cls, u1, u2]
     grp_cls = ep_static.grp
     _w3 = np.arange(Wp + 1)[:, None, None]

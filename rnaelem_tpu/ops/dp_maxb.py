@@ -1,18 +1,17 @@
-"""Batched max-semiring (Viterbi/CYK) inside DP — batch-minor, TPU-first.
+"""Batched max-semiring (Viterbi/CYK) inside DP — batch-minor.
 
 The CYK twin of ops/dp.py: one ``lax.scan`` over sequence columns
 computes the max-semiring recursion of the reference scanner
 (CYKFun, motif_scanner.hpp:802-913) for a WHOLE BATCH of reads, with the
-batch axis minor so the (state, batch) plane fills the VPU lanes.  The
-previous CYK kernel (ops/dp_max.py) was a per-read layout under
-``jax.vmap`` — its [.., S=~29] minor dims left >75% of the 128-wide
-lanes idle and its per-column full-table flips made the device pass
-~50x slower per read than the sum kernel (BASELINE.md round 5).
+batch axis minor as in ops/dp.py.  The per-read CYK kernel
+(ops/dp_max.py, under ``jax.vmap``) has [.., S=~29] minor dims and
+per-column full-table flips; on the accelerator it was built for, that
+made its device pass ~50x slower per read than the sum kernel.
 
 Forward only: the traceback re-derives per-cell argmaxes (scan/cyk.py)
 so no reverse pass or trace tensors are needed.  Max replaces the sum
-path's exp-space matmuls with broadcast-add + max-reduce (VPU work; XLA
-fuses the broadcasts into the reductions), and the TT_E_P quadruple sum
+path's exp-space matmuls with broadcast-add + max-reduce (XLA fuses
+the broadcasts into the reductions), and the TT_E_P quadruple sum
 uses the same pairs13 -> AR -> K2 chain factorization as ops/dp.py —
 max distributes over + exactly like sum distributes over *, and
 ``lam >= 0`` (bounds-clipped) lets the internal-loop energy classes be

@@ -1,9 +1,9 @@
-"""TPU-fast internal-loop (TT_E_P) block.
+"""Factorised internal-loop (TT_E_P) block.
 
 The naive contraction gathers P/L cells per (w, dk, dl, q) — O(W*C^2*nq)
-random gathers per column, which serialize on TPU (measured 50x slowdown
-vs the C=2 band).  This module computes the same sum exactly with
-MXU-friendly structure:
+random gathers per column (50x slower than the C=2 band on the
+accelerator this was first built for).  This module computes the same
+sum exactly as dense products over static matrices:
 
 * loop_energy (energy_param.hpp:744-795) is factorized by case:
     long loops:   misA[j,w] + misB[l,v] + internal[u1+u2] + ninio[|u1-u2|]

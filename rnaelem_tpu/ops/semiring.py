@@ -57,9 +57,8 @@ def shear(A, J: int, fill=NEG):
 
     A: [D, R, ...tail] -> Y: [D, J, ...tail]; out-of-range (j < d or
     j - d >= R) filled with `fill`.  Implemented as pad + leading-dims
-    reshape + slice, which TPUs execute as cheap copies — unlike
-    take_along_axis, which lowers to a serialized gather (measured 50x
-    slower for the DP's band-sized shears).
+    reshape + slice, i.e. plain copies, instead of take_along_axis,
+    which lowers to a gather.
     """
     D, R = A.shape[0], A.shape[1]
     tail = A.shape[2:]

@@ -3,7 +3,7 @@ array-job backend (arrayjob_manager.hpp:121-151 submit,
 motif_array_trainer.hpp:20-58 collect, motif_eval.hpp:23-54 slave) as a
 queue-agnostic subprocess fan-out.
 
-This is the no-mesh fallback: when chips ARE connected, the mesh path
+This is the no-mesh fallback: when devices ARE connected, the mesh path
 (parallel/mesh.py) replaces the whole protocol with one SPMD program.
 Here the channel is the shared filesystem, exactly like the reference:
 the master writes a model snapshot (through the same 6-significant-
@@ -17,7 +17,6 @@ set, which is also how the 2-slave test exercises the protocol.
 """
 from __future__ import annotations
 
-import os
 import shlex
 import subprocess
 import sys
@@ -161,20 +160,21 @@ def submit_local(slave_argv: List[str], n: int,
     """Run n slaves as local subprocesses, rank via SGE_TASK_ID
     (the reference's DBG_ARRAY-compatible env contract,
     arrayjob_manager.hpp:110-119), and block until all finish —
-    the subprocess equivalent of `qsub -t 1-N -sync y`."""
-    procs = []
-    for tid in range(1, n + 1):
-        e = dict(env if env is not None else os.environ)
+    the subprocess equivalent of `qsub -t 1-N -sync y`.  On a GPU host
+    each slave gets a card of its own and at most one slave per card
+    runs at once (runtime.fan_out); elsewhere all n run at once."""
+    from .. import runtime
+
+    def run(tid, e):
         e["SGE_TASK_ID"] = str(tid)
-        procs.append(subprocess.Popen(
-            slave_argv, env=e, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True))
-    errs = [p.communicate()[1] for p in procs]
-    for p, err in zip(procs, errs):
-        if p.returncode != 0:
+        p = subprocess.run(slave_argv, env=e, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.PIPE, text=True)
+        return p.returncode, p.stderr
+
+    for rc, err in runtime.fan_out(range(1, n + 1), run, n, env):
+        if rc != 0:
             raise RuntimeError(
-                f"array-eval slave failed ({p.returncode}):\n"
-                f"{err[-2000:]}")
+                f"array-eval slave failed ({rc}):\n{err[-2000:]}")
 
 
 class ArrayEvaluator:

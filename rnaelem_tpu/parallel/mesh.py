@@ -1,11 +1,12 @@
-"""Multi-chip / multi-host data parallelism over a jax.sharding.Mesh.
+"""Multi-device / multi-host data parallelism over a jax.sharding.Mesh.
 
 The reference's distributed objective evaluation (TR_ARRAY,
 motif_trainer.hpp:608-614 + motif_array_trainer.hpp) broadcasts the model
 through a file, slices the FASTQ across SGE array tasks and sums
-fn/gr/eff from text files.  TPU-native equivalent: the read batch is
-sharded over the mesh 'data' axis, parameters are replicated, and the
-per-step all-reduce is a psum over ICI — one jitted step, no filesystem.
+fn/gr/eff from text files.  Here the read batch is sharded over the
+mesh's flat 'data' axis (one entry per device), parameters are
+replicated, and the per-read results are gathered and summed on the host
+in read order — one jitted step, no filesystem.
 
 Multi-host: call jax.distributed.initialize() first; the mesh then spans
 non-addressable devices, so input staging switches from device_put to

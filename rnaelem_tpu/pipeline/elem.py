@@ -10,8 +10,9 @@ reference driver's directory layout and selection logic (script/elem):
     cv  select.txt  model-<i>/...
 
 Cluster array jobs are replaced by a local worker pool (--jobs) running
-``python -m rnaelem_tpu.cli`` subprocesses; multi-host TPU data
-parallelism inside a single training run lives in parallel/mesh.py.
+``python -m rnaelem_tpu.cli`` subprocesses, one GPU card each on a GPU
+host (runtime.fan_out); multi-device data parallelism inside a single
+training run lives in parallel/mesh.py.
 """
 from __future__ import annotations
 
@@ -21,11 +22,11 @@ import os
 import random
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
+from .. import runtime
 from .kmer_psp import parse_fasta
 
 
@@ -52,10 +53,10 @@ def cry(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def _run_cli(args, log_path):
+def _run_cli(args, log_path, env=None):
     cmd = [sys.executable, "-m", "rnaelem_tpu.cli"] + [str(a) for a in args]
     with open(log_path, "a") as log:
-        subprocess.run(cmd, check=True, stderr=log)
+        subprocess.run(cmd, check=True, stderr=log, env=env)
 
 
 def parse_raw(path):
@@ -284,18 +285,18 @@ def run_train(elem_out, max_span, max_iter, batch_size, thread, jobs,
         cry("info: --array without --sge-option-file runs the local "
             "--jobs pool")
 
-    def one(task):
+    def one(task, env):
         cry("k_fold:", task[1])
         cry("pattern:", task[0])
         for argv, log in cmds_of(task):
             if in_process:
                 _run_inproc(argv, log)
             else:
-                _run_cli(argv, log)
+                _run_cli(argv, log, env)
 
     # in-process tasks share one JAX client; the global stderr redirect
     # (and the device itself) serialize them, so the pool is bypassed
-    _pool(tasks, one, 1 if in_process else jobs)
+    runtime.fan_out(tasks, one, 1 if in_process else jobs)
 
 
 def _pattern_signature(pattern: str):
@@ -306,12 +307,13 @@ def _pattern_signature(pattern: str):
     return (p.count("("), sum(c in "._" for c in p), "_" in p)
 
 
-def _run_inproc(args, log_path):
+def _run_inproc(args, log_path, env=None):
     """Run one CLI command inside THIS process (shared JAX client and
     compiled-kernel cache) instead of a fresh subprocess — the task
     runner for a single shared accelerator, where per-task process
     churn both re-initializes the device and re-compiles every kernel
-    (BASELINE.md 'Multi-pattern pipeline on the chip')."""
+    (BASELINE.md 'Multi-pattern pipeline').  `env` is unused: the
+    task shares this process's device."""
     from .. import cli as CLI
     old_err = sys.stderr
     with open(log_path, "a") as log:
@@ -337,15 +339,6 @@ def _run_inproc(args, log_path):
         cry("task rss_mb:", rss_mb)
     except Exception:
         pass
-
-
-def _pool(tasks, fn, jobs):
-    if jobs and jobs > 1:
-        with ThreadPoolExecutor(max_workers=jobs) as ex:
-            list(ex.map(fn, tasks))
-    else:
-        for t in tasks:
-            fn(t)
 
 
 def gen_cv_summary(elem_out):
@@ -416,7 +409,7 @@ def run_refine(elem_out, max_iter, batch_size, plot_base_threshold,
     tasks = list(enumerate(models, 1))
     run1 = _run_inproc if in_process else _run_cli
 
-    def one(task):
+    def one(task, env):
         tid, model = task
         mdir = f"{elem_out}/model-{tid}"
         os.makedirs(mdir, exist_ok=True)
@@ -426,7 +419,7 @@ def run_refine(elem_out, max_iter, batch_size, plot_base_threshold,
               "--batch-size", batch_size, *ns,
               "--out1", f"{mdir}/train.model",
               "--out2", f"{mdir}/train.raw",
-              "--out3", f"{mdir}/train.interim"], f"{mdir}/log")
+              "--out3", f"{mdir}/train.interim"], f"{mdir}/log", env)
         try:
             from .draw_motif import draw
             draw(mdir, f"{mdir}/rss.svg", f"{mdir}/prf.svg",
@@ -436,7 +429,7 @@ def run_refine(elem_out, max_iter, batch_size, plot_base_threshold,
         except Exception as e:
             cry("draw_motif failed:", e)
 
-    _pool(tasks, one, 1 if in_process else jobs)
+    runtime.fan_out(tasks, one, 1 if in_process else jobs)
 
 
 def run_scan(model, elem_out, sequence, outdir, jobs, thread,
@@ -452,15 +445,15 @@ def run_scan(model, elem_out, sequence, outdir, jobs, thread,
                         Path(elem_out).glob("model-*/train.model"))
         tasks = list(enumerate(models, 1))
 
-        def one(task):
+        def one(task, env):
             i, mdl = task
             os.makedirs(f"{outdir}/model-{i}", exist_ok=True)
             run1(["scan", "--fastq", f"{outdir}/scan.fq",
                   "--motif-model", mdl,
                   "--out1", f"{outdir}/model-{i}/scan.raw"],
-                 f"{outdir}/model-{i}/log")
+                 f"{outdir}/model-{i}/log", env)
 
-        _pool(tasks, one, 1 if in_process else jobs)
+        runtime.fan_out(tasks, one, 1 if in_process else jobs)
     else:
         run1(["scan", "--fastq", f"{outdir}/scan.fq",
               "--motif-model", model,
@@ -470,8 +463,7 @@ def run_scan(model, elem_out, sequence, outdir, jobs, thread,
 def build_parser():
     p = argparse.ArgumentParser(
         prog="elem",
-        description="Tool to discover RNA structural motif elements "
-                    "(TPU-native)")
+        description="Tool to discover RNA structural motif elements")
     sub = p.add_subparsers(dest="subcommand")
 
     def common_train(q):
@@ -479,7 +471,8 @@ def build_parser():
         q.add_argument("-i", "--max-iter", type=int, default=300)
         q.add_argument("-t", "--thread", type=int, default=1)
         q.add_argument("-j", "--jobs", type=int, default=1,
-                       help="local task parallelism (replaces --array)")
+                       help="local task parallelism (replaces --array); "
+                            "on a GPU host at most one task per card")
         q.add_argument("-a", "--array", action="store_true",
                        help="submit pattern x fold tasks as a cluster "
                             "array job (requires --sge-option-file); "

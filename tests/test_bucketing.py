@@ -1,4 +1,4 @@
-"""Length bucketing (SURVEY §7.1 'Batching'; VERDICT r2 #4): mixed-length
+"""Length bucketing (SURVEY §7.1 'Batching'): mixed-length
 FASTQ trains and scans through per-bucket kernels (pad to the next
 32-multiple) instead of specializing on the file max — and bucketed
 results equal full-pad results exactly."""

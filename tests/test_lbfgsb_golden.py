@@ -1,5 +1,5 @@
 """L-BFGS-B (--no-shuffle) validation against the reference binary
-(VERDICT r2 #6; /root/reference/RNAelem/optimizer.hpp:175-334).
+(the reference's optimizer.hpp:175-334).
 
 Golden provenance: the reference was built on this machine
 (g++ -std=c++14 -O3 RNAelem/main.cpp ushuffle.o -lpthread) and run as
@@ -7,9 +7,9 @@ Golden provenance: the reference was built on this machine
   RNAelem -f trna.fq -m '(.....)' --no-shuffle -i 8 --batch-size -1 \
       -t 1 --out1 trna_ref.model --out2 trna_ref.raw
 
-where trna.fq is material/positive.fa (T->U) with flat '+' qualities and
-the has-motif sentinel '!'.  Its final objective decomposition (stderr):
-raw fn 0.13662 + L2 penalty 1.5765 = 1.713098.  The stored model is
+where trna.fq is tests/fixtures/material/positive.fa (T->U) with flat
+'+' qualities and the has-motif sentinel '!'.  Its final objective
+decomposition (stderr): raw fn 0.13662 + L2 penalty 1.5765 = 1.713098.  The stored model is
 tests/golden/trna_noshuffle_ref.model.
 """
 import os
@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from rnaelem_tpu import cli
+from rnaelem_tpu.io.fastq import write_flat_fastq
 from rnaelem_tpu.model import io as MIO
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden",
@@ -34,23 +35,9 @@ GOLD_SMALL = os.path.join(os.path.dirname(__file__), "golden",
 
 
 def _write_trna_fq(path, n_seqs=None):
-    seqs, cur = [], None
-    for line in open("/root/reference/material/positive.fa"):
-        line = line.strip()
-        if line.startswith(">"):
-            if cur:
-                seqs.append(cur)
-            cur = ""
-        else:
-            cur += line.replace("T", "U")
-    if cur:
-        seqs.append(cur)
-    if n_seqs is not None:
-        seqs = seqs[:n_seqs]
-    with open(path, "w") as f:
-        for i, s in enumerate(seqs):
-            f.write(f"@t{i}\n{s}\n+\n{'+' * len(s)}!\n")
-    return len(seqs)
+    fa = os.path.join(os.path.dirname(__file__), "fixtures", "material",
+                      "positive.fa")
+    return write_flat_fastq(fa, path, n_seqs)
 
 
 def test_objective_matches_reference_at_its_optimum(tmp_path):
@@ -77,7 +64,7 @@ def test_objective_matches_reference_at_its_optimum(tmp_path):
 
 @pytest.mark.slow
 def test_noshuffle_training_converges_small(tmp_path):
-    """Unconditional optimizer-trajectory regression (VERDICT r3 #3):
+    """Unconditional optimizer-trajectory regression:
     --no-shuffle L-BFGS-B training on the shrunk workload (8 tRNAs,
     W=28, C=12, 16 iterations) reaches the reference binary's converged
     parameters.  Shrunk from the RNAELEM_HEAVY full-toy variant below so

@@ -21,16 +21,12 @@ def main():
     args = ap.parse_args()
 
     import jax
-    cache = os.path.join(os.path.expanduser("~"), ".cache", "rnaelem_jax")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
+    from rnaelem_tpu import runtime
     from rnaelem_tpu.alphabet import seq_to_ints
     from rnaelem_tpu.model import joint as J
     from rnaelem_tpu.train import objective as OBJ
 
-    dtype = "float32" if jax.default_backend() != "cpu" else "float64"
+    dtype = runtime.setup()
     nseq, L = args.nseq, args.L
     cfg = J.ModelConfig(pattern="(.....)", Lp=L, max_span=50,
                         max_iloop=30, min_bpp=1e-4, tau=0.1,

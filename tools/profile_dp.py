@@ -9,6 +9,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from rnaelem_tpu import runtime
 from rnaelem_tpu.alphabet import seq_to_ints
 from rnaelem_tpu.model import joint as J
 from rnaelem_tpu.train import objective as OBJ
@@ -27,7 +28,7 @@ def timeit(name, f, reps=3):
 
 
 def main():
-    dtype = "float32" if jax.default_backend() != "cpu" else "float64"
+    dtype = runtime.setup()
     nseq, L = 64, 100
     cfg = J.ModelConfig(pattern="(.....)", Lp=L, max_span=50,
                         max_iloop=30, min_bpp=1e-4, tau=0.1,
